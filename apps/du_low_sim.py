@@ -26,7 +26,7 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax  # noqa: E402
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", default=None, help="YAML cell config")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
@@ -65,7 +65,9 @@ def main() -> int:
                          "uplink")
     ap.add_argument("--cpu", action="store_true", help="force CPU backend")
     ap.add_argument("--dump-config", action="store_true")
-    args = ap.parse_args()
+    ap.add_argument("--strict", action="store_true",
+                    help="exit non-zero unless every UL CRC passed")
+    args = ap.parse_args(argv)
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
@@ -78,7 +80,6 @@ def main() -> int:
     from srsran_project_tpu.phy.upper_phy import UpperPhy, UpperPhyConfig
     from srsran_project_tpu.ran.constants import SubcarrierSpacing
     from srsran_project_tpu.ran.slot_point import SlotPoint
-    from srsran_project_tpu.support import hostio
     from srsran_project_tpu.support import config as cfg_mod
     from srsran_project_tpu.support import staging, tracing
     from srsran_project_tpu.support.metrics import collector
@@ -186,7 +187,7 @@ def main() -> int:
             air = slot + 1  # DL data arrives one slot ahead of air time
             ru.ota_tick(slot)
             ru.handle_new_uplink_slot(Ctx(slot=air))
-            ru.handle_dl_data(Ctx(slot=air), hostio.to_host(grid))
+            ru.handle_dl_data(Ctx(slot=air), np.asarray(grid))
             # Tick the OTA clock through this slot + the air slot; every
             # paced frame dispatches inside its window and loops back as
             # the RU's uplink on the same eAxC map.
@@ -202,7 +203,7 @@ def main() -> int:
             rx = rx + nstd * (rng.standard_normal(rx.shape)
                               + 1j * rng.standard_normal(rx.shape)
                               ).astype(np.complex64)
-            rx_grid = hostio.to_device(rx.astype(np.complex64))
+            rx_grid = jax.device_put(rx.astype(np.complex64))
         elif ru is not None:
             Ctx = ru_ctx["ResourceGridContext"]
             ru.handle_dl_data(Ctx(slot=slot), np.asarray(grid))
@@ -215,8 +216,7 @@ def main() -> int:
             ru.push_ul_samples(slot, samples)
             ru.handle_new_uplink_slot(Ctx(slot=slot))
             ru.advance_slot(slot)
-            import jax.numpy as jnp
-            rx_grid = hostio.to_device(ru_ctx["rx"].pop(slot))
+            rx_grid = jax.device_put(ru_ctx["rx"].pop(slot))
         else:
             rx_grid, _, _ = chem.apply_channel(grid, sub, ch_cfg)
         ul = fapi.UlTtiRequest(slot=slot, pusch=[fapi.UlPuschPdu(cell.pusch_cfg, 0x4601)])
@@ -274,7 +274,7 @@ def main() -> int:
         if args.metrics_json:
             print(json.dumps({"cells": msched.metrics_report(),
                               "slots": args.slots, "bler": bler}))
-        return 0 if bler < 1.0 else 1
+        return _exit_code(bler, nof_grants, args.strict)
 
     if args.ues > 0:
         # Scheduler-driven multi-UE mode: RR/QoS policy + HARQ lifecycle.
@@ -388,16 +388,16 @@ def main() -> int:
         if args.common:
             print(f"# common channels: {sched.counters}", file=sys.stderr)
         rep = sched.report()
-        tput = sum(v["ul_bits_ok"] for v in rep.values()) / elapsed / 1e6
+        ul_mbps = sum(v["ul_bits_ok"] for v in rep.values()) / elapsed / 1e6
         print(f"# scheduler mode: {args.ues} UEs, {nof_grants} grants, "
-              f"{crc_ok} CRC OK, {tput:.1f} Mbps UL", file=sys.stderr)
+              f"{crc_ok} CRC OK, {ul_mbps:.1f} Mbps UL", file=sys.stderr)
         bler = 1.0 - crc_ok / max(nof_grants, 1)
         print(f"# {args.slots} slots in {elapsed:.2f}s, BLER={bler:.3f}", file=sys.stderr)
         if args.metrics_json:
             print(collector.report_json())
         if args.trace:
             tracing.l1_tracer.write(args.trace)
-        return 0 if bler < 1.0 else 1
+        return _exit_code(bler, nof_grants, args.strict)
 
     t_start = time.monotonic()
     with staging.sync_stages():  # first slot compiles sequentially
@@ -413,6 +413,13 @@ def main() -> int:
         print(collector.report_json())
     if args.trace:
         tracing.l1_tracer.write(args.trace)
+    return _exit_code(bler, args.slots, args.strict)
+
+
+def _exit_code(bler: float, nof_grants: int, strict: bool) -> int:
+    """0 unless every UL TB failed, or (strict) any failed or none ran."""
+    if strict:
+        return 0 if bler == 0.0 and nof_grants > 0 else 1
     return 0 if bler < 1.0 else 1
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""gnb_sim — monolithic gNB simulator: CU-CP + CU-UP + DU + TPU PHY.
+"""gnb_sim — monolithic gNB simulator: CU-CP + CU-UP + DU + PHY.
 
 Counterpart of the reference's apps/gnb (SURVEY.md section 3.1): brings up
 the whole stack in one process with in-process connectors — AMF sim, NG

@@ -6,14 +6,14 @@ suite compiles the reference pusch chain (pdsch encode -> the in-tree
 pxsch_bler_test TDL channel emulator -> pusch_processor) and records
 BLER + LDPC iteration statistics per operating point into
 tests/golden/bler_parity/manifest.json.  This script replays the same
-points through the TPU chain (transmit -> TDL emulator -> fused front
-end -> Pallas LDPC decode with per-codeblock iteration counts) and
-writes BLER_PARITY.md side by side.
+points through this framework's chain (transmit -> TDL emulator -> front
+end -> LDPC decode with per-codeblock iteration counts, on the backend's
+decoder) and writes BLER_PARITY.md side by side, naming the device.
 
 Both emulators draw uncorrelated TDL-profile taps per slot, so BLER
 matches statistically (binomial CI at 300 slots reported alongside).
 
-Usage: python benchmarks/bler_parity.py [--cpu] [--slots N] [--out BLER_PARITY.md]
+Usage: python benchmarks/bler_parity.py [--slots N] [--out BLER_PARITY.md]
 """
 
 from __future__ import annotations
@@ -33,11 +33,13 @@ def run_case(case, nof_slots, chunk=50, parity_kernels=False):
     import jax.numpy as jnp
 
     from srsran_project_tpu.ops.modulation import Modulation
-    from srsran_project_tpu.ops.ldpc import decoder_pallas
+    from srsran_project_tpu.ops.ldpc import decoder as ldpc_decoder
+    from srsran_project_tpu.ops.ldpc import decoder_cuda
     from srsran_project_tpu.phy import channel_emulator as chem
     from srsran_project_tpu.phy import pusch
     from srsran_project_tpu.phy.allocation import Allocation
     from srsran_project_tpu.phy.sch import _dematch_stage, _desegment_stage
+    from srsran_project_tpu.support import platform
 
     prof = {"TDLA": "tdla", "TDLB": "tdlb", "TDLC": "tdlc",
             "single-tap": "single"}[case["profile"]]
@@ -54,8 +56,8 @@ def run_case(case, nof_slots, chunk=50, parity_kernels=False):
         extra = dict(estimator="reference")
     # Match the equalizer ALGORITHM the reference side measured with:
     # rank >1 reference rows run ZF (its open-source MMSE is 1-layer only,
-    # channel_equalizer_generic_impl.cpp is_supported); TPU-only rank-4
-    # rows (ref_unsupported) keep the production MMSE.
+    # channel_equalizer_generic_impl.cpp is_supported); rank-4 rows that
+    # only this chain runs (ref_unsupported) keep the production MMSE.
     if case.get("equalizer") == "zf" and not case.get("ref_unsupported"):
         extra["equalizer"] = "zf"
     cfg = pusch.PuschConfig(
@@ -68,21 +70,20 @@ def run_case(case, nof_slots, chunk=50, parity_kernels=False):
                             nof_sc=nof_prb * 12,
                             noise_convention="fixed")
     seg = cfg.sch.seg
-    use_pallas = jax.devices()[0].platform != "cpu"
+    on_kernel = platform.ldpc_decoder() == "cuda"
 
     def one_slot(tb, key):
         grid = pusch.transmit(tb, jnp.uint32(0x4601), cfg)
         rx, _h, _nv = chem.apply_channel(grid, key, ch)
         llr_i8, _nvar, _snr = pusch._front_end(rx, jnp.uint32(0x4601), cfg)
-        _harq, flat = _dematch_stage(llr_i8, None, cfg.sch)
-        if use_pallas:
-            bits, _app, iters = decoder_pallas.decode_pallas(
-                flat, seg.base_graph, seg.lifting_size, 6, early_stop=True)
+        buf = _dematch_stage(llr_i8, None, cfg.sch)
+        if on_kernel:
+            bits, iters = decoder_cuda.decode(
+                buf, seg.base_graph, seg.lifting_size, 6, early_stop=True,
+                n_cb=cfg.sch.n_cb)
         else:
-            from srsran_project_tpu.ops.ldpc import decoder as ldpc_decoder
-
             bits, _app, iters = ldpc_decoder.decode_count_iters(
-                flat, seg.base_graph, seg.lifting_size, 6)
+                buf.astype(jnp.float32), seg.base_graph, seg.lifting_size, 6)
         tb_hat, ok = _desegment_stage(bits, cfg.sch, ())
         data_ok = ok & jnp.all(tb_hat == tb)
         return ok.astype(jnp.int32), data_ok.astype(jnp.int32), iters
@@ -117,21 +118,22 @@ def run_case(case, nof_slots, chunk=50, parity_kernels=False):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--slots", type=int, default=300)
     ap.add_argument("--out", default="BLER_PARITY.md")
     args = ap.parse_args()
-    if args.cpu:
-        import jax
+    import jax
 
-        jax.config.update("jax_platforms", "cpu")
+    from srsran_project_tpu.support import platform
+
+    platform.configure_compile_cache()
+    dev = jax.devices()[0]
     man = os.path.join(os.path.dirname(__file__), "..",
                        "tests", "golden", "bler_parity", "manifest.json")
     cases = json.load(open(man))
-    # TPU-only rank-4 rows: the reference's OPEN-SOURCE equalizer caps at
-    # 2 layers (channel_equalizer_generic_impl.cpp is_supported — ZF 1-2
-    # layers, MMSE 1 layer; ranks above sit behind SRSRAN_HAS_ENTERPRISE),
-    # so rank 4 is measured on the TPU chain only (4x4 MMSE) and annotated.
+    # Rank-4 rows: the reference's OPEN-SOURCE equalizer caps at 2 layers
+    # (channel_equalizer_generic_impl.cpp is_supported — ZF 1-2 layers,
+    # MMSE 1 layer; ranks above sit behind SRSRAN_HAS_ENTERPRISE), so rank
+    # 4 is measured on this chain only (4x4 MMSE) and annotated.
     from srsran_project_tpu.ran.tbs import calculate_tbs
 
     base10 = next(c for c in cases if c["mcs"] == 10)
@@ -158,19 +160,19 @@ def main():
         print(f"{case['profile']:>10} r{case.get('layers', 1)} "
               f"{case['sinr_db']:5.1f} dB mcs{case['mcs']:>2}: "
               f"ref {case['crc_bler']:.3f} (it {case['iter_mean']:.1f}) | "
-              f"tpu-parity {ours['crc_bler']:.3f} | tpu-fast {fast['crc_bler']:.3f}",
+              f"parity {ours['crc_bler']:.3f} | fast {fast['crc_bler']:.3f}",
               flush=True)
 
     with open(args.out, "w") as f:
         f.write(
-            "# BLER parity — reference chain vs TPU chain, same operating "
+            "# BLER parity — reference chain vs this chain, same operating "
             "points\n\n"
             "Reference numbers are MEASURED by running the reference's own "
             "pusch chain\n(pdsch encode -> the in-tree pxsch_bler_test TDL "
             "channel emulator ->\npusch_processor, compiled by tools/refgen, "
-            "suite `bler_parity`) on this\nhost.  TPU numbers replay the "
-            "same operating points through this\nframework's chain with its "
-            "TDL emulator.  Both draw uncorrelated\nper-slot taps; agreement "
+            "suite `bler_parity`) on the\nhost CPU.  This chain's numbers "
+            f"replay the same operating points on\n{dev.device_kind} "
+            f"({dev.platform}) with its TDL emulator.  Both draw uncorrelated\nper-slot taps; agreement "
             "is statistical (95% CI of the reference's\nmeasurement shown)."
             "\n\n"
             "Rank-N rows run N layers over an NxN i.i.d. MIMO channel "
@@ -179,13 +181,12 @@ def main():
             "selects (pxsch_bler_test.cpp:257);\nits open-source MMSE is "
             "single-layer-only and ranks above 2 are\nenterprise-gated "
             "(channel_equalizer_generic_impl.cpp is_supported), so\nrank-4 "
-            "rows are TPU-only (4x4 MMSE).  TPU LDPC iteration counts are\n"
-            "per-codeblock syndrome-stop statistics (the Pallas kernel's "
-            "early-stop\ncriterion); the reference's are its CRC-stop "
-            "decoder stats.\n\n"
+            "rows run on this chain only (4x4 MMSE).  This chain's LDPC "
+            "iteration\ncounts are per-codeblock syndrome-stop statistics; "
+            "the reference's are\nits CRC-stop decoder stats.\n\n"
             "| Profile | Rank | SINR dB | MCS (qam64 tbl) | TBS | ref CRC BLER "
-            "(±CI) | TPU (parity kernels) | TPU (fast kernels) | ref LDPC "
-            "iters (min/mean/max) | TPU iters |\n"
+            "(±CI) | parity kernels | fast kernels | ref LDPC "
+            "iters (min/mean/max) | iters |\n"
             "|---|---|---|---|---|---|---|---|---|---|\n")
         for case, ours, fast, ci in rows:
             if case.get("ref_unsupported"):
@@ -203,7 +204,7 @@ def main():
                 f"| {ref_it} "
                 f"| {ours['iter_min']}/{ours['iter_mean']:.1f}/{ours['iter_max']} |\n")
         f.write(f"\nSlots per point: reference {rows[0][0]['nof_slots']}, "
-                f"TPU {rows[0][1]['nof_slots']}.\n"
+                f"this chain {rows[0][1]['nof_slots']}.\n"
                 "Regenerate: `tools/refgen/build/refgen tests/golden "
                 "bler_parity` then\n`python benchmarks/bler_parity.py`.\n")
     print(f"wrote {args.out}")

@@ -16,7 +16,7 @@ Modes:
 Prints p50/p90/p99/max per direction plus the deadline-miss rate against
 the pipelined budget.
 
-Usage: python benchmarks/latency_bench.py [--depth 4] [--slots 100] [--cpu]
+Usage: python benchmarks/latency_bench.py [--depth 4] [--slots 100] [--nof-rb 273]
 """
 
 from __future__ import annotations
@@ -41,17 +41,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--depth", type=int, default=4, help="slots in flight (pipeline mode)")
     ap.add_argument("--slots", type=int, default=100)
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--scs-khz", type=int, default=30)
+    ap.add_argument("--nof-rb", type=int, default=273,
+                    help="273 = the flagship CellConfig(); else a small 2x2 cell")
     args = ap.parse_args()
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
 
     from srsran_project_tpu.models import cell as cell_mod
     from srsran_project_tpu.ops import ofdm as ofdm_mod
-    from srsran_project_tpu.support import staging
+    from srsran_project_tpu.support import platform, staging
 
-    cfg = cell_mod.CellConfig() if not args.cpu else cell_mod.tiny_cell(24, 2)
+    platform.configure_compile_cache()
+    dev = jax.devices()[0]
+    cfg = (cell_mod.CellConfig() if args.nof_rb == 273
+           else cell_mod.tiny_cell(args.nof_rb, 2))
     slot_s = 1e-3 / (args.scs_khz // 15)
     budget_s = 5 * slot_s  # max_processing_delay_slots = 5 (reference default)
     rng = np.random.default_rng(0)
@@ -71,7 +73,8 @@ def main() -> int:
         iq_rx = iq + noise
         out = cell_mod.decode_slot(iq_rx, rnti, cfg)
         jax.block_until_ready(out["tb_bits"])
-    print(f"# warmup done ({cfg.nof_rb} PRB, {cfg.nof_ports}x{cfg.nof_layers})", flush=True)
+    print(f"# warmup done ({cfg.nof_rb} PRB, {cfg.nof_ports}x{cfg.nof_layers}) "
+          f"on {dev.device_kind} ({dev.platform})", flush=True)
 
     def run_single(fn, n):
         lats = []

@@ -9,8 +9,11 @@ and aggregate Mbps, mirroring the reference's multi-PDU slot shape
 (uplink_processor_impl.h:149 PDU repository; benchmark modes
 pusch_processor_benchmark.cpp:57-91).
 
-Usage: python benchmarks/multi_ue_bench.py [--cpu] [--ues 4,8,16]
+Usage: python benchmarks/multi_ue_bench.py [--ues 4,8,16]
        [--prb 273] [--ports 1]
+
+Every line is stamped with the device it ran on; every timing ends in
+block_until_ready.
 """
 
 from __future__ import annotations
@@ -24,7 +27,28 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from benchmarks.common import timeit_rb  # noqa: E402
+
+
+def timeit(fn, n=10):
+    """Median seconds per call, each call ended by block_until_ready."""
+    import time
+
+    import jax
+
+    jax.block_until_ready(fn())
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def _device():
+    import jax
+
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind}
 
 
 def run(nof_prb: int, ues: list[int], nof_ports: int) -> list[dict]:
@@ -58,8 +82,7 @@ def run(nof_prb: int, ues: list[int], nof_ports: int) -> list[dict]:
         rntis = np.arange(n, dtype=np.uint32) + 0x4601
         offs = [i * rb_each for i in range(n)]
         w = np.eye(1, nof_ports, dtype=np.complex64)
-        from srsran_project_tpu.support import hostio
-        grid0 = hostio.zeros_complex((nof_ports, 14, nof_grid_sc))
+        grid0 = jnp.zeros((nof_ports, 14, nof_grid_sc), jnp.complex64)
 
         grid = pdsch.process_multi(tbs_b, rntis, offs, w, tx, grid=grid0)
         key = jax.random.PRNGKey(0)
@@ -67,10 +90,9 @@ def run(nof_prb: int, ues: list[int], nof_ports: int) -> list[dict]:
                  * np.float32(np.sqrt(0.5) * 10 ** (-25.0 / 20)))
         rx_grid = grid + jax.lax.complex(noise[..., 0], noise[..., 1])
 
-        t_dl, sync_dl = timeit_rb(
+        t_dl = timeit(
             lambda: pdsch.process_multi(tbs_b, rntis, offs, w, tx, grid=grid0))
-        t_ul, sync_ul = timeit_rb(
-            lambda: pusch.process_multi(rx_grid, rntis, offs, rx))
+        t_ul = timeit(lambda: pusch.process_multi(rx_grid, rntis, offs, rx))
         out = pusch.process_multi(rx_grid, rntis, offs, rx)
         nof_fail = int(np.asarray((~out["tb_crc_ok"]).astype(jnp.int32).sum()))
         rate_slots = 1.0 / t_dl + 1.0 / t_ul
@@ -81,7 +103,7 @@ def run(nof_prb: int, ues: list[int], nof_ports: int) -> list[dict]:
             "dl_ms_per_slot": round(t_dl * 1e3, 3),
             "ul_ms_per_slot": round(t_ul * 1e3, 3),
             "agg_mbps": round(n * tbs * rate_slots / 1e6, 1),
-            "crc_fail": nof_fail, "sync_method": sync_ul,
+            "crc_fail": nof_fail, "device": _device(),
         })
         print(json.dumps(results[-1]), flush=True)
     return results
@@ -103,7 +125,6 @@ def run_hetero(nof_prb: int, nof_ports: int) -> dict:
     from srsran_project_tpu.phy.allocation import Allocation
     from srsran_project_tpu.ran import tbs as tbs_mod
     from srsran_project_tpu.ran.constants import NRE
-    from srsran_project_tpu.support import hostio
 
     rng = np.random.default_rng(0)
     nof_grid_sc = nof_prb * 12
@@ -128,7 +149,7 @@ def run_hetero(nof_prb: int, nof_ports: int) -> dict:
     for i, (cfg, rb0) in enumerate(plan):
         tb = jnp.asarray(rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8))
         cfg_tx = dc.replace(cfg, alloc=dc.replace(cfg.alloc, crb_start=rb0))
-        sub = hostio.to_host(pusch.transmit(tb, jnp.uint32(0x4601 + i), cfg_tx))
+        sub = np.asarray(pusch.transmit(tb, jnp.uint32(0x4601 + i), cfg_tx))
         grid[:1, :, rb0 * 12: rb0 * 12 + cfg.nof_grid_sc] += sub
         pdus.append(ul_slot.UlSlotPdu(rnti=0x4601 + i, first_rb=rb0,
                                       config=cfg_tx))
@@ -136,14 +157,14 @@ def run_hetero(nof_prb: int, nof_ports: int) -> dict:
         prb=nof_prb - 1, start_symbol=0, nof_symbols=14,
         initial_cyclic_shift=3, occ_index=1, n_id=42, slot_in_frame=3,
         nof_harq_bits=2)
-    grid[0, 0:14, (nof_prb - 1) * 12: nof_prb * 12] += 0.8 * hostio.to_host(
+    grid[0, 0:14, (nof_prb - 1) * 12: nof_prb * 12] += 0.8 * np.asarray(
         pucch_mod.format1_generate(f1, np.asarray([1, 0], np.uint8)))
     grid += (rng.standard_normal(grid.shape)
              + 1j * rng.standard_normal(grid.shape)).astype(np.complex64) \
         * np.float32(10 ** (-25.0 / 20) * np.sqrt(0.5))
-    grid_d = hostio.to_device(grid.astype(np.complex64))
+    grid_d = jnp.asarray(grid.astype(np.complex64))
 
-    t, sync = timeit_rb(lambda: ul_slot.process_slot(grid_d, pdus, (f1,))[0]
+    t = timeit(lambda: ul_slot.process_slot(grid_d, pdus, (f1,))[0]
                         [0]["tb_bits"])
     # Per-PDU comparison: the same slot as 8 individual process() calls +
     # a standalone F1 detect — the host-loop shape the slot program
@@ -161,10 +182,10 @@ def run_hetero(nof_prb: int, nof_ports: int) -> dict:
         outs.append(pucch_mod.format1_detect(grid_d, f1)[0])
         return outs
 
-    t_pdu, _ = timeit_rb(per_pdu, n=5)
+    t_pdu = timeit(per_pdu, n=5)
     results, f1_res, _f0 = ul_slot.process_slot(grid_d, pdus, (f1,))
     nof_fail = sum(1 for r in results
-                   if not bool(hostio.to_host(r["tb_crc_ok"])))
+                   if not bool(np.asarray(r["tb_crc_ok"])))
     out = {
         "metric": f"hetero_slot_rate_{nof_prb}prb_8ue_2cfg_pucch",
         "value": round(1.0 / t, 1), "unit": "slots/s",
@@ -173,9 +194,9 @@ def run_hetero(nof_prb: int, nof_ports: int) -> dict:
         "speedup_vs_per_pdu": round(t_pdu / t, 2),
         "ue_count": 8, "distinct_configs": 2, "pucch_f1": 1,
         "crc_fail": nof_fail,
-        "f1_bits_ok": bool((hostio.to_host(f1_res[0][0]) ==
+        "f1_bits_ok": bool((np.asarray(f1_res[0][0]) ==
                             np.asarray([1, 0])).all()),
-        "sync_method": sync,
+        "device": _device(),
     }
     print(json.dumps(out), flush=True)
     return out
@@ -183,17 +204,15 @@ def run_hetero(nof_prb: int, nof_ports: int) -> dict:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--ues", default="4,8,16")
     ap.add_argument("--prb", type=int, default=273)
     ap.add_argument("--ports", type=int, default=1)
     ap.add_argument("--hetero", action="store_true",
                     help="mixed-config 8-UE + PUCCH slot (phy/ul_slot.py)")
     args = ap.parse_args()
-    if args.cpu:
-        import jax
+    from srsran_project_tpu.support import platform
 
-        jax.config.update("jax_platforms", "cpu")
+    platform.configure_compile_cache()
     if args.hetero:
         run_hetero(args.prb, args.ports)
         return

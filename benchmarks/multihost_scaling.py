@@ -22,7 +22,7 @@ only cross-host traffic is the CRC verdict rollup.
 Honesty note: virtual CPU devices SHARE the machine's physical cores,
 so a wall-clock 1-vs-2-process comparison on one box measures core
 contention, not scaling — this artifact instead measures the actual
-DCN-crossing cost of the design.  A >=2-chip TPU deployment is needed
+DCN-crossing cost of the design.  A >=2-device deployment is needed
 for end-to-end hardware efficiency; the harness (jax.distributed +
 host_mesh + global_batch) is the same code path.
 

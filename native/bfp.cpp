@@ -1,6 +1,6 @@
 // Block-floating-point IQ compression (O-RAN WG4 CUS Annex A.1 style).
 //
-// TPU-native counterpart of the reference's OFH compression pipeline
+// Native counterpart of the reference's OFH compression pipeline
 // (lib/ofh/compression/iq_compression_bfp_avx512.cpp): the NIC-facing
 // byte work stays on the host CPU in native code; the device only ever
 // sees resource grids.

@@ -1,6 +1,6 @@
 // IQ sample frame transport over UDP — the simulated-RF boundary.
 //
-// TPU-native counterpart of the reference's ZMQ radio
+// Native counterpart of the reference's ZMQ radio
 // (lib/radio/zmq/: simulated RF over REQ/REP sample streaming) and the raw
 // socket side of the OFH Ethernet transceiver (lib/ofh/ethernet/): frames
 // of complex int16 IQ samples with a (slot, symbol, port) header travel

@@ -1,7 +1,7 @@
 // Open Fronthaul U-plane message (de)serialization: eCPRI framing + O-RAN
 // CUS-style radio application/section headers + BFP-compressed PRB payload.
 //
-// TPU-native counterpart of the reference's lib/ofh/{ecpri,serdes}
+// Native counterpart of the reference's lib/ofh/{ecpri,serdes}
 // (eCPRI packet builder/decoder, ORAN U-plane packet (de)builders): the
 // host NIC-facing byte work stays native; the device only sees grids.
 //

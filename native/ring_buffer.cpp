@@ -1,6 +1,6 @@
 // Lock-free SPSC ring buffer for baseband samples.
 //
-// TPU-native counterpart of the reference's rigtorp SPSC queue usage in the
+// Native counterpart of the reference's rigtorp SPSC queue usage in the
 // lower-PHY baseband pipeline (lib/phy/lower/lower_phy_baseband_processor):
 // the host-side producer (IQ transport / RU emulator) and consumer (device
 // feeder) exchange fixed-size sample blocks without locks.

@@ -3,6 +3,6 @@
 Scope-parity counterpart of the reference's lib/mac, lib/rlc, lib/pdcp,
 lib/sdap, lib/gtpu, lib/security (SURVEY.md section 2.4) at
 interface/simulator fidelity per SURVEY section 1: deterministic host-side
-protocol logic (bytes in, bytes out) that frames the TPU PHY's transport
+protocol logic (bytes in, bytes out) that frames the PHY's transport
 blocks, so the framework can be driven end-to-end above FAPI.
 """

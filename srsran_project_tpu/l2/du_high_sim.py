@@ -8,7 +8,7 @@ UL transport blocks back through MAC -> RLC.  F1-U (NR-U over GTP-U) links
 it to the CU-UP simulator (cu_up_sim.py), mirroring the reference's split:
 PDCP/SDAP live in the CU-UP, RLC/MAC in the DU.
 
-TBs are numpy bit arrays at the FAPI boundary (what the TPU PDSCH/PUSCH
+TBs are numpy bit arrays at the FAPI boundary (what the PDSCH/PUSCH
 processors carry); bytes<->bits conversion happens here.
 """
 

@@ -7,7 +7,7 @@ decode of MAC subPDUs (R/F/LCID subheaders with 8- or 16-bit L fields),
 the fixed/variable MAC CEs both directions, and the RAR PDU.
 
 Pure-bytes host-side logic: MAC PDUs are the transport-block payloads the
-TPU PDSCH/PUSCH processors carry; nothing here touches the device.
+PDSCH/PUSCH processors carry; nothing here touches the device.
 """
 
 from __future__ import annotations

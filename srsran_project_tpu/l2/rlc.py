@@ -8,7 +8,7 @@ SNs, segment offsets, status PDUs (NACK lists with SO ranges), poll-driven
 status reporting and a retransmission queue.
 
 Host-side protocol logic; the produced PDUs ride the MAC transport blocks
-the TPU PHY carries. Timers are virtual (advanced by the caller's slot
+the PHY carries. Timers are virtual (advanced by the caller's slot
 clock) so entities are deterministic in tests and simulators.
 """
 

@@ -12,7 +12,7 @@ security_engine_impl.cpp; SURVEY.md section 2.4 "Security"):
   _security_tables.npz (see tools/extract_security_tables.py).
 - NEA3/NIA3: ZUC (TS 35.221/35.222/35.223).  S0/S1/D constants likewise.
 
-All host-side byte logic (crypto never touches the TPU); Python-int
+All host-side byte logic (crypto never touches the accelerator); Python-int
 implementations are simulator-fidelity, validated by FIPS-197 / RFC 4493 /
 TS 35.222 known-answer vectors plus encrypt-decrypt roundtrips.
 """

@@ -4,7 +4,7 @@ Counterpart of the reference's per-cell scheduler architecture
 (lib/scheduler/cell_scheduler.cpp:92 — the scheduler instantiates one
 cell_scheduler per active cell, and a UE's resources live on its SERVING
 cell through the ue_cell context, lib/scheduler/ue_context/ue_cell.cpp).
-TPU-frame equivalent at simulator fidelity:
+Equivalent here at simulator fidelity:
 
 - every cell runs the FULL RoundRobinScheduler machinery (PDCCH/PUCCH/SRS
   allocators, HARQ, link adaptation, UE-context loops) over its own

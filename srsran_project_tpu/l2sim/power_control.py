@@ -4,7 +4,7 @@ Counterpart of the reference's pusch_power_controller / pucch_power_controller
 (lib/scheduler/support/pusch_power_controller.cpp).  The open-source
 reference stubs the actual TPC computation ("only available in the
 Enterprise version", returning the 0 dB command); here the real closed
-loop is implemented — like the 4x4 MMSE equalizer, the TPU build exceeds
+loop is implemented — like the 4x4 MMSE equalizer, this build exceeds
 the open-source reference at an enterprise-gated point:
 
 - the measured PUSCH SINR (from CRC indications) is driven toward a

@@ -1,11 +1,11 @@
 """CRC calculators for 5G NR (TS 38.212 §5.1).
 
 Counterpart of the reference's crc_calculator_{lut,clmul,neon}_impl
-(lib/phy/upper/channel_coding/crc_calculator_lut_impl.cpp) — re-designed for
-TPU: a CRC over GF(2) is a linear map of the message bits, so for a fixed
+(lib/phy/upper/channel_coding/crc_calculator_lut_impl.cpp) — re-designed as
+linear algebra: a CRC over GF(2) is a linear map of the message bits, so for a fixed
 message length L the checksum is ``(bits @ A) mod 2`` where ``A`` is an
 (L, crc_len) 0/1 matrix whose row i is the CRC of the i-th unit vector.
-That matmul runs on the MXU in f32 (exact for L < 2^24) and batches over
+That matmul runs in f32 (exact for L < 2^24, TF32 included) and batches over
 codeblocks for free.  The generator matrices are cached per (poly, L).
 
 A pure-Python long-division model (`crc_ref`) is the test oracle.
@@ -145,7 +145,7 @@ _DIRECT_MAX = 16384
 
 @functools.partial(jax.jit, static_argnames=("name",))
 def crc(bits: jax.Array, name: str) -> jax.Array:
-    """CRC of messages, MXU-friendly and compile-light.
+    """CRC of messages as matmuls, compile-light.
 
     bits: (..., L) 0/1 array.  Returns (..., crc_len) uint8, MSB first.
 
@@ -155,7 +155,7 @@ def crc(bits: jax.Array, name: str) -> jax.Array:
     (CHUNK, n) matmul; ONE (K*n, n) fold matmul combines every chunk's
     contribution (CRC is linear over GF(2), so each chunk's partial CRC
     advanced by its tail length adds into the final value).  All matmuls
-    are exact: 0/1 inputs are exact in bf16 MXU passes and the f32
+    are exact: 0/1 inputs are exact in bf16 or TF32 products and the f32
     accumulator holds integer counts < 2^24; counts reduce mod 2.
     """
     length = bits.shape[-1]

@@ -3,9 +3,9 @@
 Counterpart of the reference's channel_equalizer_generic_impl
 (lib/phy/upper/equalization/channel_equalizer_generic_impl.cpp) — which
 hand-templates ZF 1-2 layers x 1/2/4 ports and stubs 3x4/4x4 behind an
-enterprise flag — re-designed for TPU as one batched linear-algebra program:
-RE-batched (H^H H + c I) solves run on the MXU for every (ports, layers)
-combination uniformly, so full N-layer MMSE comes for free.
+enterprise flag — as one batched linear-algebra program: RE-batched
+(H^H H + c I) closed-form solves for every (ports, layers) combination
+uniformly, so full N-layer MMSE comes for free.
 
 Inputs per RE: y (ports,), H (ports, layers), noise variance; outputs the
 unbiased symbol estimates and the equivalent post-equalization noise
@@ -43,11 +43,10 @@ def _inv2(c):
 def _inv_small(c: jax.Array) -> jax.Array:
     """Closed-form inverse of (..., L, L) matrices, L in {1, 2, 3, 4}.
 
-    jnp.linalg.inv on batches of tiny matrices lowers to a looped LU on
-    TPU and was measured at ~59 ms per 100 MHz slot (the whole decode's
-    dominant cost).  Blocked 2x2 Schur complements are pure vectorized
-    elementwise math: ~60x faster.  L=3 pads to 4 with an identity
-    corner (block-diagonal, so the padded inverse embeds the answer)."""
+    jnp.linalg.inv on batches of tiny matrices lowers to a looped LU
+    factorization; blocked 2x2 Schur complements are pure vectorized
+    elementwise math.  L=3 pads to 4 with an identity corner
+    (block-diagonal, so the padded inverse embeds the answer)."""
     nl = c.shape[-1]
     if nl == 1:
         return 1.0 / c
@@ -59,10 +58,10 @@ def _inv_small(c: jax.Array) -> jax.Array:
         pad = pad.at[..., 3, 3].set(1.0)
         return _inv_small(pad)[..., :3, :3]
     if nl == 4:
-        # All 2x2 products at HIGHEST precision: the MXU's default bf16
-        # passes put ~1% error on each entry, which the inverse's
-        # conditioning amplifies to O(1..10) absolute error (measured vs
-        # a float64 oracle on TPU; CPU is always exact).
+        # All 2x2 products at HIGHEST precision: a reduced-precision
+        # product puts ~1e-3..1e-2 error on each entry, which the inverse's
+        # conditioning amplifies to O(1..10) absolute error (measured
+        # against a float64 oracle).
         def _mm(x, y):
             nb = tuple(range(x.ndim - 2))
             return jax.lax.dot_general(
@@ -87,21 +86,19 @@ def _inv_small(c: jax.Array) -> jax.Array:
     raise ValueError(f"L={nl} unsupported")
 
 
-def _equalize_mmse4_soa(y, h, noise_var, tx_scaling):
-    """4-layer MMSE in structure-of-arrays layout.
+def _mmse4_soa(h, noise_var, tx_scaling):
+    """4x4 MMSE algebra in structure-of-arrays layout: every entry of the
+    4x4 matrices is its own (...,) array, so the algebra is elementwise
+    over the RE axis (no batched 4x4 matrix products).
 
-    The generic path carries (..., nre, 4, 4) arrays whose trailing dims
-    occupy 4 of 128 vector lanes; unrolling the 4x4 algebra over scalar
-    (..., nre) vectors puts the RE axis in the lanes (measured ~2.6x on
-    the TPU at x32 slot batch).  Same math as the generic MMSE branch."""
+    Returns (ci, g, bias mu per layer) with ci = (beta^2 G + sigma^2 I)^-1
+    as nested lists [l][m] and g the Gram matrix H^H H."""
     L = P = 4
     nv = jnp.maximum(jnp.asarray(noise_var, h.real.dtype), 1e-12)
     beta2 = jnp.asarray(tx_scaling, h.real.dtype) ** 2
     hc = [[h[..., p, l] for l in range(L)] for p in range(P)]
-    yc = [y[..., p] for p in range(P)]
     g = [[sum(jnp.conj(hc[p][l]) * hc[p][m] for p in range(P)) for m in range(L)]
          for l in range(L)]
-    z = [sum(jnp.conj(hc[p][l]) * yc[p] for p in range(P)) for l in range(L)]
     c = [[beta2 * g[l][m] + (nv if l == m else 0.0) for m in range(L)]
          for l in range(L)]
 
@@ -130,13 +127,36 @@ def _equalize_mmse4_soa(y, h, noise_var, tx_scaling):
           [TL[2], TL[3], TR[2], TR[3]],
           [BL[0], BL[1], Si[0], Si[1]],
           [BL[2], BL[3], Si[2], Si[3]]]
-    ts = jnp.asarray(tx_scaling, h.dtype)
-    x = [sum(ci[l][m] * z[m] for m in range(L)) * ts for l in range(L)]
     mu = [jnp.clip(sum((ci[l][m] * (beta2 * g[m][l])).real for m in range(L)),
                    1e-9, 1.0 - 1e-9) for l in range(L)]
+    return ci, hc, mu
+
+
+def _equalize_mmse4_soa(y, h, noise_var, tx_scaling):
+    """4-layer MMSE per RE in structure-of-arrays layout (see _mmse4_soa).
+    Same math as the generic MMSE branch."""
+    L = P = 4
+    ci, hc, mu = _mmse4_soa(h, noise_var, tx_scaling)
+    yc = [y[..., p] for p in range(P)]
+    z = [sum(jnp.conj(hc[p][l]) * yc[p] for p in range(P)) for l in range(L)]
+    ts = jnp.asarray(tx_scaling, h.dtype)
+    x = [sum(ci[l][m] * z[m] for m in range(L)) * ts for l in range(L)]
     xh = jnp.stack([x[l] / mu[l].astype(h.dtype) for l in range(L)], axis=-1)
     ev = jnp.stack([(1.0 - mu[l]) / mu[l] for l in range(L)], axis=-1)
     return xh, ev
+
+
+def _weights_mmse4_soa(h, noise_var, tx_scaling=1.0):
+    """equalize_weights' 4x4 MMSE in structure-of-arrays layout."""
+    L = P = 4
+    ci, hc, mu = _mmse4_soa(h, noise_var, tx_scaling)
+    ts = jnp.asarray(tx_scaling, h.dtype)
+    w = jnp.stack([jnp.stack(
+        [sum(ci[l][m] * jnp.conj(hc[p][m]) for m in range(L)) * ts
+         / mu[l].astype(h.dtype) for p in range(P)], axis=-1) for l in range(L)],
+        axis=-2)
+    ev = jnp.stack([(1.0 - mu[l]) / mu[l] for l in range(L)], axis=-1)
+    return w, ev
 
 
 @functools.partial(jax.jit, static_argnames=("method",))
@@ -156,13 +176,23 @@ def equalize_weights(
     (symbol, subcarrier)) invert each distinct matrix once instead of per
     RE.  At the 100 MHz 13-symbol slot that is 12x less inverse work than
     the per-RE formulation.
+
+    4x4 MMSE takes the structure-of-arrays form: the batched 4x4
+    dot_generals of the generic form become cuBLAS batched GEMMs on the
+    GPU, which XLA cannot fuse with the elementwise inverse around them.
     """
+    if h.shape[-1] == 4 and h.shape[-2] == 4 and method == "mmse":
+        return _weights_mmse4_soa(h, noise_var, tx_scaling)
+    return _weights_generic(h, noise_var, tx_scaling, method)
+
+
+def _weights_generic(h, noise_var, tx_scaling=1.0, method="mmse"):
+    """equalize_weights for any ports x layers, with batched matmuls."""
     nlayers = h.shape[-1]
     hh = jnp.conj(jnp.swapaxes(h, -1, -2))  # (..., L, P)
-    # HIGHEST precision: the MXU's default bf16 passes on these 4x4
-    # matmuls cost O(1) absolute weight error on conditioned channels
-    # (verified against a float64 oracle; the Pallas kernel and the SoA
-    # elementwise path are exact to ~1e-4).
+    # HIGHEST precision: a reduced-precision f32 product (TF32 on a GPU)
+    # on these small matmuls costs O(1) absolute weight error on
+    # conditioned channels (measured against a float64 oracle).
     gram = jax.lax.dot_general(
         hh, h, (((hh.ndim - 1,), (h.ndim - 2,)), BATCH2(hh)),
         precision=jax.lax.Precision.HIGHEST)
@@ -217,7 +247,8 @@ def equalize(
     gram = jax.lax.dot_general(
         hh, h, (((hh.ndim - 1,), (h.ndim - 2,)), BATCH2(hh)),
         precision=jax.lax.Precision.HIGHEST)  # (..., L, L)
-    z = (hh @ y[..., None])[..., 0]  # (..., L) matched filter
+    hp = jax.lax.Precision.HIGHEST
+    z = jnp.matmul(hh, y[..., None], precision=hp)[..., 0]  # (..., L) matched filter
     nv = jnp.maximum(jnp.asarray(noise_var, h.real.dtype), 1e-12)[..., None]
     beta2 = jnp.asarray(tx_scaling, h.real.dtype) ** 2
 
@@ -231,7 +262,8 @@ def equalize(
         raise ValueError(method)
 
     cinv = _inv_small(c)  # (..., L, L); closed form, L <= 4
-    xt = (cinv @ z[..., None])[..., 0] * jnp.asarray(tx_scaling, h.dtype)
+    xt = jnp.matmul(cinv, z[..., None], precision=hp)[..., 0] * jnp.asarray(
+        tx_scaling, h.dtype)
 
     if method == "mmse":
         # Bias mu_l = [C^-1 (beta^2 G)]_ll; unbiased estimate and 1/SINR.

@@ -1,6 +1,6 @@
 """Port channel estimator (counterpart of the reference's
 port_channel_estimator_average_impl, lib/phy/upper/signal_processors/
-port_channel_estimator_average_impl.cpp, 833 lines) — TPU re-design.
+port_channel_estimator_average_impl.cpp, 833 lines) — batched re-design.
 
 Pipeline per (rx port, tx layer): LS estimates at pilot REs -> freq-domain
 OCC despreading over CDM pairs -> time averaging across DM-RS symbols ->

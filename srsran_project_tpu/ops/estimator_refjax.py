@@ -1,4 +1,4 @@
-"""Reference-parity port channel estimator as a jitted TPU kernel.
+"""Reference-parity port channel estimator as a jitted JAX program.
 
 Same semantics as the NumPy oracle ``ops/estimator_ref.py`` (which is the
 conformance surface against the reference's
@@ -178,8 +178,9 @@ def _fd_smooth(p, cfg: RefEstimatorConfig, c):
                      jnp.unwrap(jnp.angle(p[..., -nof_v:]), axis=-1), False)
     enlarged = jnp.concatenate([head, p, tail], axis=-1)
 
-    # HIGHEST precision: TPU convolutions default to bf16 passes (~1%
-    # per-tap error), which would break the reference-parity tolerance.
+    # HIGHEST precision: a default-precision convolution may run in bf16 or
+    # TF32 (~1e-3..1e-2 per-tap error), which would break the
+    # reference-parity tolerance.
     conv = lambda v: jnp.convolve(v, taps.astype(v.dtype), mode="same",
                                   precision=jax.lax.Precision.HIGHEST)
     flat = enlarged.reshape(-1, enlarged.shape[-1])
@@ -344,8 +345,8 @@ def estimate_port_ref(grid: jax.Array, pilots: jax.Array,
             num_w = jnp.asarray([-0.5, 0.0, 0.5], jnp.float32)
             den_w = jnp.asarray([0.5, -1.0, 0.5], jnp.float32)
             corr_f = 0.5
-        num = jnp.dot(num_w, peak)
-        den = jnp.dot(den_w, peak)
+        num = jnp.dot(num_w, peak, precision=jax.lax.Precision.HIGHEST)
+        den = jnp.dot(den_w, peak, precision=jax.lax.Precision.HIGHEST)
         res = jnp.where(den != 0, -corr_f * num / jnp.where(den != 0, den, 1.0),
                         jnp.nan)
         frac = jnp.where(jnp.isfinite(res) & (jnp.abs(res) <= 1.0), res, 0.0)

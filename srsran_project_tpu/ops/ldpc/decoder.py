@@ -1,6 +1,7 @@
 """LDPC decoder: layered normalized min-sum (counterpart of the reference's
 ldpc_decoder_generic/avx2/avx512, lib/phy/upper/channel_coding/ldpc/
-ldpc_decoder_impl.cpp) — re-designed for TPU.
+ldpc_decoder_impl.cpp) as plain JAX: the portable path, and the reference
+that the GPU kernel (decoder_cuda.py) is checked against.
 
 Layout: the a-posteriori LLRs live as one flat (batch, NB*Z + 1) f32 vector
 (last slot is a scatter sink for padded edges).  Each check layer's
@@ -9,7 +10,7 @@ flat gather index matrix (Dmax, Z), so one layer update is: gather,
 extrinsic-subtract, two-level min reduction, scaled sign-magnitude update,
 scatter.  Layers run under `lax.scan` (the schedule is inherently
 sequential); iterations under `lax.fori_loop`; codewords batch in the
-leading axis to fill the VPU.
+leading axis.
 
 Numerics follow the reference semantics: channel LLRs clamped to ±64 on
 load (ldpc_decoder_impl.h:205), punctured systematic blocks enter as 0,
@@ -55,7 +56,7 @@ def _layer_tables(bg: int, z: int, nof_layers: int):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("bg", "z", "nof_iterations", "nof_layers")
+    jax.jit, static_argnames=("bg", "z", "nof_iterations", "nof_layers", "n_cb")
 )
 def decode(
     llrs: jax.Array,
@@ -63,17 +64,20 @@ def decode(
     z: int,
     nof_iterations: int = 6,
     nof_layers: int | None = None,
+    n_cb: int | None = None,
 ):
     """Decode rate-dematched codeword LLRs.
 
     llrs: (batch, N) with N = (n-2)*Z — the circular-buffer positions
           (punctured 2Z systematic bits NOT included; they are re-inserted
           as zeros here).  Positive LLR means bit 0.
+    n_cb: LBRM circular-buffer length; decodes only the check rows that
+          can reach the message (graphs.active_layers, bit-exact for the
+          message bits).
     Returns (bits (batch, K) uint8, app (batch, N_full) f32 final LLRs).
     """
     g = graphs.get_graph(bg, z)
-    if nof_layers is None:
-        nof_layers = g.m
+    nof_layers = graphs.active_layers(g, n_cb, nof_layers)
     nb = g.n
     batch = llrs.shape[0]
 
@@ -137,7 +141,7 @@ def decode_count_iters(
     """Like decode(), additionally returning per-codeblock convergence
     iteration counts: the first iteration (1-based) whose hard decision
     satisfies every parity check, or ``nof_iterations`` if none does —
-    the same syndrome-stop statistic the Pallas TPU decoder reports, for
+    the same syndrome-stop statistic the GPU decoder kernel reports, for
     LDPC iteration parity against the reference's per-CB stats
     (ldpc_decoder stats in pusch_decoder_impl / pxsch_bler_test.cpp:375).
     All iterations still execute (no data-dependent trip count inside

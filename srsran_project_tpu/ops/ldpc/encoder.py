@@ -1,4 +1,4 @@
-"""LDPC encoder (TS 38.212 §5.3.2), batched, TPU-first.
+"""LDPC encoder (TS 38.212 §5.3.2), batched.
 
 Counterpart of the reference's ldpc_encoder_generic/avx2/avx512
 (lib/phy/upper/channel_coding/ldpc/ldpc_encoder_generic.cpp) — re-designed as
@@ -14,8 +14,8 @@ a static jitted program per (bg, z):
 * the extension parity rows are a second gather + reduction over the
   (message + core parity) columns.
 
-No sequential bit arithmetic anywhere; batching over codeblocks fills the
-VPU lanes.
+No sequential bit arithmetic anywhere; codeblocks batch along the leading
+axis.
 """
 
 from __future__ import annotations

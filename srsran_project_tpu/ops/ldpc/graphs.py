@@ -126,6 +126,26 @@ def select_lifting_size(bg: int, b: int, nof_codeblocks: int) -> int:
     raise ValueError(f"no lifting size for b={b} c={nof_codeblocks}")
 
 
+def active_layers(g: LdpcGraph, n_cb: int | None,
+                  nof_layers: int | None = None) -> int:
+    """Check rows that can influence the message bits for a length-n_cb
+    circular buffer (limited-buffer rate matching, LBRM).
+
+    The extension parity columns are degree-1 ([E | I] structure), so a
+    row whose parity column lies entirely beyond n_cb receives only its own
+    check's extrinsic there: its variable-to-check message is identically
+    zero and it never sends a nonzero message to the data bits.  Skipping
+    it is bit-exact for the decoded message under layered min-sum.  Same
+    formula as the reference's layer count for a truncated input
+    (ldpc_decoder_impl.cpp:106-117, nof_layers = codeblock_length/Z - K_b);
+    at the 100 MHz flagship's LBRM n_cb it cuts 46 layers to 16.
+    """
+    nl = g.m if nof_layers is None else nof_layers
+    if n_cb is not None and n_cb < g.nof_codeword_bits:
+        nl = min(nl, max(4, -(-(n_cb + 2 * g.z) // g.z) - g.kb))
+    return nl
+
+
 def parity_check(graph: LdpcGraph, codeword: np.ndarray) -> np.ndarray:
     """H @ c mod 2 as a (batch, M*Z) syndrome (NumPy oracle).
 

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's ldpc_rate_matcher_impl / ldpc_rate_dematcher_*
 (lib/phy/upper/channel_coding/ldpc/ldpc_rate_matcher_impl.cpp) — re-designed
-for TPU: for a static (bg, Z, K', E, rv, Qm, N_cb) configuration, the whole
+as static tensor ops: for a static (bg, Z, K', E, rv, Qm, N_cb) configuration, the whole
 bit-selection + interleaving pipeline collapses to one precomputed gather
 index vector; dematching is the corresponding scatter-add with int8 LLR
 saturation.  Redundancy versions and filler skipping cost nothing at runtime.
@@ -77,9 +77,8 @@ def _valid_runs(bg: int, z: int, k_prime: int, rv: int, n_cb: int):
     The whole bit-selection map is a handful of contiguous buffer slices
     (circular start + <= 2 filler splits + wraparound), so both matching
     and dematching collapse to static slice/concat/transpose — no device
-    gather.  TPU gathers are lane-starved (ROOFLINE r3 measured the
-    (N,)-index dematch gather at ~2.8 ms/slot); slice+concat copies run
-    at HBM bandwidth.
+    gather: slice+concat copies run at memory bandwidth, where an
+    (N,)-index gather reads through an index array.
     """
     is_filler = _filler_mask(bg, z, k_prime, n_cb)
     k0 = k0_offset(bg, z, rv, n_cb)

@@ -73,11 +73,9 @@ def _axis_llrs_closed(y: jax.Array, levels: np.ndarray, labels: np.ndarray) -> j
     """Exact per-axis max-log LLRs by direct distance minimization.
 
     Pure unrolled elementwise math (2^m subtract/square chains + min
-    trees): no LUT gather — TPU gathers through the (m, NI) interval
-    tables were the dominant demap cost on hardware (ROOFLINE r3:
-    2.49 ms per 256QAM slot), while the VPU eats the ~5x flop increase
-    for free.  Also Pallas-kernel-safe (no dynamic indexing), so the
-    fused front-end kernel reuses it verbatim.
+    trees): no LUT gather through the (m, NI) interval tables, at ~5x
+    the flops of the table form; elementwise chains fuse into one
+    kernel, and the code has no dynamic indexing.
 
     Returns (m, ...) LLRs, positive = bit 0 — identical (up to float
     rounding) to the interval-table evaluation, which is itself a

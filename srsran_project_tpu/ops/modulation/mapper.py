@@ -100,8 +100,7 @@ def map_bits(bits: jax.Array, mod: Modulation) -> jax.Array:
     assert e % qm == 0
     # Symbols arithmetically from the nested Gray PAM recursion (TS
     # 38.211 §5.1.4+): pure elementwise f32 math — no million-row gather
-    # through a 2^Qm LUT (TPU gathers are lane-starved; the closed form
-    # rides the VPU at full width).
+    # through a 2^Qm LUT; the closed form fuses into one elementwise pass).
     group = bits.astype(jnp.float32).reshape(bits.shape[:-1] + (e // qm, qm))
     if qm == 1:
         b = group[..., 0]

@@ -2,14 +2,12 @@
 
 Counterpart of the reference's ofdm_modulator/ofdm_demodulator
 (lib/phy/lower/modulation/ofdm_modulator_impl.cpp:58, ofdm_demodulator_impl.cpp:96)
-and its FFTW dft_processor — re-designed for TPU: one jitted program per
-static (scs, dft_size, nof_rb, cp, f_center) carrier configuration processes
-a whole slot of symbols as a batch.  The (I)DFT is a two-stage 64-point
-matmul factorization on real TPUs (XLA's native FFT on the target backend
-measured 6-9 ms per 56x4096 batch; the matmul form rides the MXU) and
-jnp.fft elsewhere; the half-spectrum grid placement, per-symbol
-phase-compensation coefficients (TS 38.211 §5.4) and gather-based
-cyclic-prefix handling are all static tensor ops.
+and its FFTW dft_processor — as one jitted program per static (scs,
+dft_size, nof_rb, cp, f_center) carrier configuration that processes a
+whole slot of symbols as a batch.  The (I)DFT is jnp.fft (cuFFT on the GPU);
+the half-spectrum grid placement, per-symbol phase-compensation
+coefficients (TS 38.211 §5.4) and gather-based cyclic-prefix handling are
+all static tensor ops.
 
 Conventions:
   * grid axes (..., nof_symbols, nof_subcarriers); subcarrier k sits at
@@ -39,77 +37,13 @@ from ..ran.constants import (
 )
 
 
-def _use_matmul_dft() -> bool:
-    """MXU matmul DFT on real TPUs; XLA's native FFT elsewhere.
-
-    Round-3 hardware profiling: XLA's FFT on this TPU backend computes a
-    (56, 4096) c2c transform in ~6-9 ms — a Cooley-Tukey factorization as
-    two stages of 64-point DFT MATMULS (f32 planes, highest precision)
-    runs the same batch ~15x faster and scales with the MXU."""
-    return jax.devices()[0].platform != "cpu"
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_factors(n: int):
-    """(n1, n2) split with n = n1*n2, n1 as close to 64 as possible."""
-    n1 = 64
-    while n % n1:
-        n1 //= 2
-    return n1, n // n1
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_mats(n: int, sign: float):
-    """Stage matrices for the matmul DFT: W1 (k1, n1), tw (n2, k1),
-    W2 (k2, n2) with exponent sign*2j*pi (sign=-1 forward, +1 inverse)."""
-    n1, n2 = _dft_factors(n)
-    w1 = np.exp(sign * 2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
-    tw = np.exp(sign * 2j * np.pi * np.outer(np.arange(n2), np.arange(n1)) / n)
-    w2 = np.exp(sign * 2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
-    return (w1.real.astype(np.float32), w1.imag.astype(np.float32),
-            tw.real.astype(np.float32), tw.imag.astype(np.float32),
-            w2.real.astype(np.float32), w2.imag.astype(np.float32))
-
-
-def _matmul_dft(x: jax.Array, inverse: bool) -> jax.Array:
-    """Unnormalized (I)DFT over the last axis via two matmul stages.
-
-    Decimation n = n2*i1 + i2, k = k1 + n1*k2: out[..., k] equals
-    sum_i x[..., i] * exp(sign*2j*pi*i*k/n) with sign=+1 for inverse.
-    f32 real/imag planes at highest matmul precision (256QAM EVM floors
-    demand better than bf16's ~-47 dB)."""
-    n = x.shape[-1]
-    n1, n2 = _dft_factors(n)
-    w1r, w1i, twr, twi, w2r, w2i = _dft_mats(n, 1.0 if inverse else -1.0)
-    batch = x.shape[:-1]
-    ar = jnp.real(x).reshape(batch + (n1, n2)).astype(jnp.float32)
-    ai = jnp.imag(x).reshape(batch + (n1, n2)).astype(jnp.float32)
-    hp = jax.lax.Precision.HIGHEST
-    ein = functools.partial(jnp.einsum, precision=hp)
-    # Stage 1: DFT over i1 -> (..., n2, k1).
-    s1r = ein("...ln,kl->...nk", ar, w1r) - ein("...ln,kl->...nk", ai, w1i)
-    s1i = ein("...ln,kl->...nk", ar, w1i) + ein("...ln,kl->...nk", ai, w1r)
-    # Twiddle (n2, k1).
-    ur = s1r * twr - s1i * twi
-    ui = s1r * twi + s1i * twr
-    # Stage 2: DFT over i2 -> (..., k2, k1); flat index k2*n1 + k1 = k.
-    s2r = ein("...mk,nm->...nk", ur, w2r) - ein("...mk,nm->...nk", ui, w2i)
-    s2i = ein("...mk,nm->...nk", ur, w2i) + ein("...mk,nm->...nk", ui, w2r)
-    return jax.lax.complex(s2r, s2i).reshape(batch + (n,))
-
-
 def _fft(x: jax.Array) -> jax.Array:
     """Forward DFT over the last axis (fft semantics)."""
-    if _use_matmul_dft():
-        return _matmul_dft(x, inverse=False)
     return jnp.fft.fft(x, axis=-1).astype(jnp.complex64)
 
 
 def _ifft(x: jax.Array) -> jax.Array:
     """Normalized inverse DFT over the last axis (ifft semantics)."""
-    n = x.shape[-1]
-    if _use_matmul_dft():
-        return _matmul_dft(x, inverse=True) * np.float32(1.0 / n)
     return jnp.fft.ifft(x, axis=-1).astype(jnp.complex64)
 
 

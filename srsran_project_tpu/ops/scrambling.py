@@ -2,7 +2,7 @@
 
 Counterpart of the reference's pseudo_random_generator_impl
 (lib/phy/upper/sequence_generators/pseudo_random_generator_impl.cpp) with its
-x1/x2 LFSRs and fast-advance — re-designed for TPU as a *linear-algebra*
+x1/x2 LFSRs and fast-advance — re-designed as a *linear-algebra*
 generator with only tiny constants (31x31 GF(2) matrices), so arbitrarily
 long sequences compile to small HLO:
 
@@ -10,8 +10,8 @@ An LFSR state s_t = (x(t) .. x(t+30)) advances 31 steps by a constant
 matrix M: s_{t+31} = s_t M over GF(2).  The 31-bit outputs of block k ARE
 the state s_{31k}, so the whole sequence is the row-concatenation of block
 states — and all block states are produced in log2(K) doubling steps:
-states[2^j .. 2^{j+1}) = states[0 .. 2^j) @ M^{2^j}.  Matmuls run in f32 on
-the MXU (exact: sums <= 31) and the seed may be a traced value (per-UE
+states[2^j .. 2^{j+1}) = states[0 .. 2^j) @ M^{2^j}.  Matmuls run in f32
+(exact, TF32 included: 0/1 operands, sums <= 31) and the seed may be a traced value (per-UE
 RNTIs under jit).
 """
 
@@ -94,10 +94,10 @@ def gold_sequence(c_init: jax.Array, length: int) -> jax.Array:
     Returns (..., length) uint8 bits.
 
     The x2 block states come from a TWO-LEVEL matmul decomposition
-    (j = a*T + b => s_j = seed @ (M^31T)^a @ (M^31)^b): two MXU matmuls
+    (j = a*T + b => s_j = seed @ (M^31T)^a @ (M^31)^b): two matmuls
     against small host constants produce every state in one pass, where
     the earlier log2(K)-step doubling rewrote the growing state array ~19
-    times (~400 MB of HBM traffic per 10 Mbit codeword).  x1's seed is
+    times (~400 MB of memory traffic per 10 Mbit codeword).  x1's seed is
     fixed, so its bits are a baked host constant."""
     total = NC + length
     k = -(-total // _NBITS)
@@ -109,9 +109,8 @@ def gold_sequence(c_init: jax.Array, length: int) -> jax.Array:
     nof_a = dmat.shape[0]
     # s1[a] = seed @ D_a ; states[a, b] = s1[a] @ C_b   (exact in f32:
     # every dot is a sum of <= 31 bit products).  Both banks are flattened
-    # to (31, K*31) so each level is ONE MXU matmul — a batched einsum of
-    # 31x31 matmuls lowers to hundreds of tiny systolic passes and was the
-    # dominant cost of scramble+map on hardware (ROOFLINE r3: 3.03 ms).
+    # to (31, K*31) so each level is ONE matmul rather than a batched einsum of
+    # hundreds of tiny 31x31 matmuls.
     dflat = jnp.asarray(dmat.transpose(1, 0, 2).reshape(_NBITS, -1))
     s_a = jnp.matmul(seed2, dflat, preferred_element_type=jnp.float32)
     s_a = (s_a.astype(jnp.int32) & 1).astype(jnp.float32)

@@ -3,8 +3,8 @@
 Counterpart of the reference's short_block_encoder/detector
 (lib/phy/upper/channel_coding/short/short_block_{encoder,detector}_impl.cpp).
 K in [3, 11] uses the RM(32, K) code of Table 5.3.3.3-1; K in {1, 2} uses
-the tiny repetition/simplex codes.  The ML detector is a single MXU matmul
-of the LLR vector against all 2^K candidate codewords — the TPU-native
+the tiny repetition/simplex codes.  The ML detector is a single matmul
+of the LLR vector against all 2^K candidate codewords — the batched
 replacement for the reference's SIMD correlation search.
 """
 
@@ -119,7 +119,9 @@ def detect(llrs: jax.Array, k: int, e: int):
     x = jnp.pad(llrs.astype(jnp.float32), [(0, 0)] * (llrs.ndim - 1) + [(0, pad)])
     folded = x.reshape(x.shape[:-1] + (reps, n)).sum(axis=-2)  # (..., n)
     signs = jnp.asarray(1.0 - 2.0 * cw.astype(np.float32))  # (2^K, n)
-    scores = jnp.matmul(folded, signs.T, preferred_element_type=jnp.float32)
+    # LLR-valued scores decide the winner: full f32 products, no TF32.
+    scores = jnp.matmul(folded, signs.T, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
     best = jnp.argmax(scores, axis=-1)
     msgs = ((np.arange(1 << k)[:, None] >> np.arange(k)) & 1).astype(np.uint8)
     bits = jnp.asarray(msgs)[best]
@@ -177,7 +179,8 @@ def detect_ref(llrs: jax.Array, k: int, e: int, qm: int):
         table2 = jnp.asarray(
             np.array([[1, 1, 1], [-1, 1, -1], [1, -1, -1], [-1, -1, 1]], np.float64)
         )
-        scores = lv @ table2.T  # (..., 4)
+        scores = jnp.matmul(lv, table2.T,
+                            precision=jax.lax.Precision.HIGHEST)  # (..., 4)
         # Strict '>' against a tiny positive init: all-nonpositive -> idx 0.
         best = jnp.argmax(scores, axis=-1)
         best = jnp.where(jnp.max(scores, axis=-1) > 0, best, 0)

@@ -377,15 +377,16 @@ def sharded_decode(grid: jax.Array, rnti, cfg: PuschConfig, mesh: Mesh,
         nof_shards = (int(np.prod([mesh.shape[a] for a in decode_axis]))
                       if isinstance(decode_axis, tuple) else mesh.shape[decode_axis])
         seg = cfg.sch.seg
-        _, flat = _dematch_stage(llr, None, cfg.sch)
-        c = flat.shape[0]
+        buf = _dematch_stage(llr, None, cfg.sch)  # (C, N) int8
+        c = buf.shape[0]
         pad = (-c) % nof_shards
-        flat_p = jax.device_put(
-            jnp.pad(flat, ((0, pad), (0, 0))),
+        buf_p = jax.device_put(
+            jnp.pad(buf, ((0, pad), (0, 0))),
             NamedSharding(mesh, P(decode_axis, None)))
         bits, _bad = sd.decode_codeblocks_sharded(
-            flat_p, seg.base_graph, seg.lifting_size, mesh,
-            nof_iterations=cfg.nof_ldpc_iterations, axis=decode_axis)
+            buf_p, seg.base_graph, seg.lifting_size, mesh,
+            nof_iterations=cfg.nof_ldpc_iterations, axis=decode_axis,
+            n_cb=cfg.sch.n_cb)
         tb, ok = _desegment_stage(bits[:c], cfg.sch, ())
         return {"tb_bits": tb, "tb_crc_ok": ok, "noise_var": nv,
                 "snr_db": 10.0 * jnp.log10(jnp.maximum(snr, 1e-12))}

@@ -3,8 +3,8 @@
 The north star's "per-codeword LDPC work balanced across chips": a
 transport block's codeblocks are embarrassingly parallel, so the (C, N)
 LLR batch shards along the dp axis and each device runs the layered
-min-sum kernel on its shard; the per-TB CRC verdict needs a single psum
-of per-shard failure counts (ICI all-reduce).
+min-sum decoder on its shard; the per-TB CRC verdict needs a single psum
+of per-shard failure counts (one all-reduce).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops import crc as crc_mod
 from ..ops.ldpc import decoder as ldpc_decoder
+from ..ops.ldpc import decoder_cuda as ldpc_decoder_cuda
+from ..support import platform
 
 
 def decode_codeblocks_sharded(
@@ -25,16 +27,25 @@ def decode_codeblocks_sharded(
     mesh: Mesh,
     nof_iterations: int = 6,
     axis: str | tuple[str, ...] = "dp",
+    n_cb: int | None = None,
 ):
     """Decode (C, N) codeblock LLRs with C sharded over `axis` (a mesh axis
     name or a tuple of axes, e.g. ("host", "dp") to span hosts over DCN).
 
     Returns (bits (C, K), nof_crc24b_failures (scalar, psum across shards)).
     C must divide by the axis size (pad with zero-LLR codeblocks upstream).
+    Each shard runs the backend's LDPC decoder (support/platform.py); the
+    GPU kernel takes int8 LLRs.  n_cb: LBRM buffer length (layer
+    truncation, bit-exact for the message).
     """
 
     def local(shard):
-        bits, _ = ldpc_decoder.decode(shard, bg, z, nof_iterations)
+        if platform.ldpc_decoder() == "cuda":
+            bits, _ = ldpc_decoder_cuda.decode(shard, bg, z, nof_iterations,
+                                               n_cb=n_cb)
+        else:
+            bits, _ = ldpc_decoder.decode(shard.astype(jnp.float32), bg, z,
+                                          nof_iterations, n_cb=n_cb)
         # Per-shard CRC24B failure count, all-reduced over the mesh.
         c = crc_mod.crc(bits, "24B").astype(jnp.int32)
         bad_local = (c.sum(axis=-1) > 0).astype(jnp.int32).sum()

@@ -3,7 +3,7 @@
 The reference parallelizes DL encode as codeblock batches dispatched over
 an executor (pdsch_processor_flexible_impl.cpp:42 — the 371-line batch
 pipeline splits the bit chain per codeblock and the RE map per symbol
-range).  The TPU-native equivalent maps both axes onto the device mesh
+range).  The equivalent here maps both axes onto the device mesh
 with GSPMD sharding annotations and lets XLA insert the collectives
 (the scaling-book recipe — pick a mesh, annotate, let the partitioner
 place all-gathers):

@@ -19,6 +19,10 @@ import numpy as np
 
 from ..ran.constants import SubcarrierSpacing, scs_khz
 
+# Full f32 products for the channel: a TF32 product would add a ~1e-3
+# relative error floor to the received signal, above the high-SNR points.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 # (delay ns, power dB) tap tables.
 PROFILES = {
     "single": ((0, 0.0),),
@@ -90,7 +94,7 @@ def draw_channel(key: jax.Array, cfg: ChannelConfig) -> jax.Array:
     g = (g[..., 0] + 1j * g[..., 1]) / np.sqrt(2) * jnp.asarray(amp)
     if cfg.noise_convention == "fixed":
         g = g / np.sqrt(float(cfg.nof_rx_ports))
-    return jnp.einsum("rtn,nk->rtk", g.astype(jnp.complex64), jnp.asarray(steer))
+    return jnp.einsum("rtn,nk->rtk", g.astype(jnp.complex64), jnp.asarray(steer), precision=_HIGHEST)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,7 +135,7 @@ def draw_channel_doppler(key: jax.Array, cfg: ChannelConfig, slot_index: int = 0
     ph = w[..., None, :] * t[:, None] + phi[..., None, :]  # (..., ntap, nsym, N)
     g = jnp.exp(1j * ph).sum(axis=-1) / np.sqrt(n_sin)  # (..., ntap, nsym)
     g = g * jnp.asarray(amp)[:, None]
-    return jnp.einsum("rtns,nk->rtsk", g.astype(jnp.complex64), jnp.asarray(steer))
+    return jnp.einsum("rtns,nk->rtsk", g.astype(jnp.complex64), jnp.asarray(steer), precision=_HIGHEST)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "slot_index"))
@@ -143,10 +147,10 @@ def apply_channel(grid: jax.Array, key: jax.Array, cfg: ChannelConfig, slot_inde
     kh, kn = jax.random.split(key)
     if cfg.doppler_hz:
         h = draw_channel_doppler(kh, cfg, slot_index)
-        rx = jnp.einsum("rtsk,tsk->rsk", h, grid.astype(jnp.complex64))
+        rx = jnp.einsum("rtsk,tsk->rsk", h, grid.astype(jnp.complex64), precision=_HIGHEST)
     else:
         h = draw_channel(kh, cfg)
-        rx = jnp.einsum("rtk,tsk->rsk", h, grid.astype(jnp.complex64))
+        rx = jnp.einsum("rtk,tsk->rsk", h, grid.astype(jnp.complex64), precision=_HIGHEST)
     if cfg.cfo_hz:
         # Exact per-symbol CFO phase at CP-cumulative symbol start times.
         t = jnp.asarray(_symbol_times_s(cfg.scs, grid.shape[-2]), jnp.float32)
@@ -175,12 +179,7 @@ def apply_channel_time(samples, key, cfg: ChannelConfig, srate_hz: float):
     The frequency-domain `apply_channel` is the per-slot-grid equivalent;
     this variant exercises true multipath through the OFDM CP.
     """
-    import jax
-
-    from ..support import hostio as _hostio
-    if not isinstance(samples, jax.Array):
-        samples = _hostio.to_device(np.asarray(samples, np.complex64))
-    samples = samples.astype(jnp.complex64)
+    samples = jnp.asarray(samples, jnp.complex64)
     taps = PROFILES[cfg.profile]
     delays_s = np.asarray([t[0] for t in taps], np.float64) * 1e-9
     powers_db = np.asarray([t[1] for t in taps], np.float64)
@@ -197,7 +196,7 @@ def apply_channel_time(samples, key, cfg: ChannelConfig, srate_hz: float):
     out = jnp.zeros((cfg.nof_rx_ports, n), jnp.complex64)
     for ti, d in enumerate(delay_samples):
         shifted = jnp.pad(samples, ((0, 0), (int(d), 0)))[:, :n]
-        out = out + jnp.einsum("rt,ts->rs", g[:, :, ti], shifted)
+        out = out + jnp.einsum("rt,ts->rs", g[:, :, ti], shifted, precision=_HIGHEST)
     sig_pow = jnp.mean(jnp.abs(out) ** 2)
     nstd = jnp.sqrt(sig_pow * 10.0 ** (-cfg.sinr_db / 10.0) / 2.0)
     noise = (jax.random.normal(kn, out.shape + (2,))

@@ -1,7 +1,7 @@
 """Downlink slot broadcast bundling: PDCCH + SSB + CSI-RS in ONE program.
 
 The reference's DL slot walks its PDU list dispatching each processor
-into the executor fabric (downlink_processor_impl); the per-PDU TPU
+into the executor fabric (downlink_processor_impl); the per-PDU device
 analogue costs one device program per PDCCH/SSB/CSI-RS PDU plus a grid
 accumulation each.  This module traces every broadcast PDU of the slot
 into a single compiled program keyed by the (static) tuple of configs —

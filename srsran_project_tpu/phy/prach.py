@@ -6,7 +6,7 @@ prach_detector_generic_impl (freq-domain root correlation + IDFT power
 delay profile + per-shift windowed peak search,
 lib/phy/upper/channel_processors/prach_detector_generic_impl.cpp:80-260).
 
-TPU design: all 64 preamble hypotheses of an occasion are evaluated in one
+Batched design: all 64 preamble hypotheses of an occasion are evaluated in one
 batched program — the per-root correlations IDFT together as one batch, the
 per-shift windows are precomputed gather masks, and the detection metric is
 a vectorized peak/noise ratio.

@@ -293,7 +293,7 @@ def decode_csi_two_step(csi1_llrs, csi2_llrs, csi_cfg):
 
     The reference decodes CSI part 1, feeds it through
     uci_part2_size_calculator, and only then decodes part 2 at the derived
-    size (pusch_processor_impl's on_csi_part1 -> part2 flow).  TPU-first
+    size (pusch_processor_impl's on_csi_part1 -> part2 flow).  Batched
     equivalent: part 2 is decoded for EVERY size the correspondence allows
     (one tiny short-block/polar detect per distinct size, all in one
     program) and the decoded RI selects the result — branch-free instead

@@ -13,11 +13,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..fapi import messages as fapi
-from ..support import hostio
 from . import csi_rs as csi_rs_mod
 from . import pdcch as pdcch_mod
 from . import pdsch as pdsch_mod
@@ -98,8 +98,8 @@ class UpperPhy:
             from ..fapi.validators import validate_dl_tti
 
             validate_dl_tti(request, tx_data, cfg.nof_grid_sc)
-        grid = hostio.zeros_complex(
-            (cfg.nof_ports, cfg.nof_grid_symbols, cfg.nof_grid_sc))
+        grid = jnp.zeros(
+            (cfg.nof_ports, cfg.nof_grid_symbols, cfg.nof_grid_sc), jnp.complex64)
         # Equal-config compact PDUs batch into ONE device program per
         # config (pdsch.process_multi — the multi-UE DL slot as a batched
         # program, not a host loop; reference slot = PDU list).
@@ -126,20 +126,19 @@ class UpperPhy:
                             for p in pdus])
             rntis = np.asarray([p.rnti for p in pdus], np.uint32)
             offs = [p.first_rb for p in pdus]
-            w = hostio.to_device(np.stack(
+            w = jax.device_put(np.stack(
                 [np.asarray(p.precoding, np.complex64) for p in pdus]))
             grid = pdsch_mod.process_multi(tbs, rntis, offs, w, cfg_g, grid=grid)
         for pdu in singles:
             tb = jnp.asarray(tx_data.payloads[pdu.tb_index], jnp.uint8)
             sub = pdsch_mod.process(
-                tb, jnp.uint32(pdu.rnti), hostio.to_device(np.asarray(pdu.precoding, np.complex64)), pdu.config
+                tb, jnp.uint32(pdu.rnti), jax.device_put(np.asarray(pdu.precoding, np.complex64)), pdu.config
             )
             if pdu.first_rb is None:
                 grid = grid + sub
             else:
                 # Compact-grid PDU: place at the granted PRB offset so all
                 # equal-size grants share one compiled program.
-                import jax
 
                 off = jnp.asarray(pdu.first_rb * 12, jnp.int32)
                 window = jax.lax.dynamic_slice(
@@ -164,8 +163,8 @@ class UpperPhy:
         """Encode UL_DCI.request PDCCH PDUs onto a (new or given) DL grid."""
         cfg = self.cfg
         if grid is None:
-            grid = hostio.zeros_complex(
-                (cfg.nof_ports, cfg.nof_grid_symbols, cfg.nof_grid_sc))
+            grid = jnp.zeros(
+                (cfg.nof_ports, cfg.nof_grid_symbols, cfg.nof_grid_sc), jnp.complex64)
         for pdu in request.pdcch:
             g = pdcch_mod.process(
                 jnp.asarray(pdu.payload, jnp.uint8), jnp.uint32(pdu.rnti), pdu.config)
@@ -189,7 +188,7 @@ class UpperPhy:
 
             file_vector.write_vector(
                 f"{self.cfg.rx_symbols_filename}.{request.slot.count}",
-                hostio.to_host(rx_grid).reshape(-1),
+                np.asarray(rx_grid).reshape(-1),
                 "cbf16",
             )
         # Heterogeneous multi-UE slot program (phy/ul_slot.py): ALL compact
@@ -255,7 +254,6 @@ class UpperPhy:
                 harq = None if pdu.new_data else self.harq_pool.get(pdu.rnti, pdu.harq_id)
                 pdu_grid = rx_grid
                 if pdu.first_rb is not None:
-                    import jax
 
                     w = pdu.config.nof_grid_sc
                     pdu_grid = jax.lax.dynamic_slice(
@@ -264,19 +262,19 @@ class UpperPhy:
                         (rx_grid.shape[0], rx_grid.shape[1], w),
                     )
                 out = pusch_mod.process(pdu_grid, jnp.uint32(pdu.rnti), pdu.config, harq_buffer=harq)
-            ok = bool(hostio.to_host(out["tb_crc_ok"]))
+            ok = bool(np.asarray(out["tb_crc_ok"]))
             if "harq_ack_bits" in out:
                 res.uci.append(fapi.UciIndicationPdu(
-                    pdu.rnti, hostio.to_host(out["harq_ack_bits"]),
-                    bool(hostio.to_host(out["harq_ack_ok"])), 0.0))
+                    pdu.rnti, np.asarray(out["harq_ack_bits"]),
+                    bool(np.asarray(out["harq_ack_ok"])), 0.0))
             if "csi1_bits" in out:
                 res.uci.append(fapi.UciIndicationPdu(
-                    pdu.rnti, hostio.to_host(out["csi1_bits"]),
-                    bool(hostio.to_host(out["csi1_ok"])), 0.0))
+                    pdu.rnti, np.asarray(out["csi1_bits"]),
+                    bool(np.asarray(out["csi1_ok"])), 0.0))
             if "csi2_bits" in out:
                 res.uci.append(fapi.UciIndicationPdu(
-                    pdu.rnti, hostio.to_host(out["csi2_bits"]),
-                    bool(hostio.to_host(out["csi2_ok"])), 0.0))
+                    pdu.rnti, np.asarray(out["csi2_bits"]),
+                    bool(np.asarray(out["csi2_ok"])), 0.0))
             res.crc.append(fapi.CrcIndicationPdu(
                 pdu.rnti, pdu.harq_id, ok,
                 snr_db=float(np.asarray(out["snr_db"])),
@@ -284,7 +282,7 @@ class UpperPhy:
                       if "ta_s" in out else None)))
             if ok:
                 res.rx_data.append(
-                    fapi.RxDataIndicationPdu(pdu.rnti, pdu.harq_id, hostio.to_host(out["tb_bits"]))
+                    fapi.RxDataIndicationPdu(pdu.rnti, pdu.harq_id, np.asarray(out["tb_bits"]))
                 )
                 self.harq_pool.release(pdu.rnti, pdu.harq_id)
             else:
@@ -325,7 +323,7 @@ class UpperPhy:
                 else:
                     bits, ok, snr = pucch_f2_mod.process(rx_grid, c)
                 res.uci.append(
-                    fapi.UciIndicationPdu(pdu.rnti, np.asarray(bits), bool(hostio.to_host(ok)), float(snr))
+                    fapi.UciIndicationPdu(pdu.rnti, np.asarray(bits), bool(np.asarray(ok)), float(snr))
                 )
             else:
                 res.errors.append(fapi.ErrorIndication(request.slot, f"unsupported PUCCH {type(c)}"))
@@ -337,7 +335,7 @@ class UpperPhy:
                     pdu.rnti,
                     10.0 * np.log10(max(snr, 1e-12)),
                     float(np.asarray(est["phase_slope"]).mean()),
-                    hostio.to_host(est["h"]),
+                    np.asarray(est["h"]),
                 )
             )
         for pdu in request.prach:
@@ -345,7 +343,7 @@ class UpperPhy:
                 res.errors.append(fapi.ErrorIndication(request.slot, "PRACH requested, no buffer"))
                 continue
             out = prach_mod.detect(prach_fd, pdu.config)
-            det = hostio.to_host(out["detected"])
+            det = np.asarray(out["detected"])
             for idx in np.nonzero(det)[0]:
                 res.rach.append(
                     fapi.RachIndicationPdu(

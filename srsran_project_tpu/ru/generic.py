@@ -6,7 +6,7 @@ lower PHY request queues, ru_uplink_request_handler_generic_impl the UL/
 PRACH requests, rx_symbol_adapter translates lower-PHY notifications into
 ru_uplink_plane_rx_symbol_notifier events).
 
-TPU redesign: the lower PHY *compute* (OFDM modulate/demodulate) is a
+Redesign: the lower PHY *compute* (OFDM modulate/demodulate) is a
 jitted whole-slot program rather than per-symbol processors, so the RU
 holds per-slot request maps and runs modulate-on-demand at each slot
 boundary; the timestamp-paced rx/tx threading is delegated to

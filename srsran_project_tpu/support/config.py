@@ -5,14 +5,20 @@ Counterpart of the reference's CLI11+YAML config machinery
 du_low_config.h:33-170): dataclass-schema configs loaded from YAML with
 dotted-path CLI overrides, validation, and round-trip dumping.  The expert
 PHY knobs mirror du_low_config.h.
+
+The YAML reader is a small one for the subset the profiles in configs/ use
+(nested block mappings, block and flow lists, plain and quoted scalars,
+comments), with YAML 1.1 scalar typing as PyYAML's safe_load applies it; it
+keeps the package free of a PyYAML dependency.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import re
 from typing import Any
-
-import yaml
 
 from ..ops.modulation import Modulation
 from ..ran.constants import CyclicPrefix, SubcarrierSpacing
@@ -24,7 +30,7 @@ class ExpertPhyConfig:
 
     max_processing_delay_slots: int = 5
     pusch_max_nof_ldpc_iterations: int = 6
-    ldpc_decoder_early_stop: bool = True  # on-device syndrome while_loop (Pallas); CRC two-phase on CPU
+    ldpc_decoder_early_stop: bool = True  # per-codeblock syndrome stop in the GPU kernel; CRC two-phase elsewhere
     pusch_sinr_calc_method: str = "post_equalization"
     pusch_channel_estimator_fd_strategy: str = "filter"  # none | mean | filter
     pusch_channel_estimator_td_strategy: str = "average"
@@ -34,7 +40,7 @@ class ExpertPhyConfig:
     pdsch_cb_batch_length: int = 0  # 0 = whole codeword batch
     llr_range_limit: float = 20.0
     # Kernel parity selections (conformance mode): reference-exact int8
-    # demapper / int8 layered min-sum decoder instead of the TPU float path.
+    # demapper / int8 layered min-sum decoder instead of the float path.
     pusch_demapper: str = "float"  # float | reference
     pusch_decoder_kernel: str = "auto"  # auto | reference_i8
     pusch_noise_estimator: str = "second_difference"  # | pair_residual
@@ -112,6 +118,185 @@ _SCS_MAP = {15: SubcarrierSpacing.KHZ15, 30: SubcarrierSpacing.KHZ30, 60: Subcar
             120: SubcarrierSpacing.KHZ120, 240: SubcarrierSpacing.KHZ240}
 
 
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_TRUE = re.compile(r"^(?:yes|Yes|YES|true|True|TRUE|on|On|ON)$")
+_FALSE = re.compile(r"^(?:no|No|NO|false|False|FALSE|off|Off|OFF)$")
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_INT_HEX = re.compile(r"^[-+]?0x[0-9a-fA-F_]+$")
+_FLOAT = re.compile(r"^[-+]?(?:[0-9][0-9_]*)?\.[0-9_]*(?:[eE][-+][0-9]+)?$")
+_INF = re.compile(r"^([-+]?)\.(?:inf|Inf|INF)$")
+_NAN = re.compile(r"^\.(?:nan|NaN|NAN)$")
+_MAP_ITEM = re.compile(r"^[^'\"\[{#-][^:]*:(?: |$)")
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _split_flow(body: str) -> list[str]:
+    items, depth, quote, cur = [], 0, None, ""
+    for ch in body:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            items.append(cur)
+            cur = ""
+            continue
+        cur += ch
+    if cur.strip():
+        items.append(cur)
+    return items
+
+
+def _scalar(tok: str):
+    """One YAML 1.1 scalar, typed as PyYAML's safe_load types it."""
+    t = tok.strip()
+    if len(t) >= 2 and t[0] == t[-1] == '"':
+        return json.loads(t)
+    if len(t) >= 2 and t[0] == t[-1] == "'":
+        return t[1:-1].replace("''", "'")
+    if t.startswith("[") and t.endswith("]"):
+        return [_scalar(x) for x in _split_flow(t[1:-1])]
+    if t.startswith("{") and t.endswith("}"):
+        return dict(_key_value(x) for x in _split_flow(t[1:-1]))
+    if _NULL.match(t):
+        return None
+    if _TRUE.match(t):
+        return True
+    if _FALSE.match(t):
+        return False
+    if _INT.match(t):
+        return int(t.replace("_", ""))
+    if _INT_HEX.match(t):
+        return int(t.replace("_", ""), 16)
+    if _FLOAT.match(t) and t not in (".", "-.", "+."):
+        return float(t.replace("_", ""))
+    m = _INF.match(t)
+    if m:
+        return -math.inf if m.group(1) == "-" else math.inf
+    if _NAN.match(t):
+        return math.nan
+    return t
+
+
+def _key_value(item: str):
+    key, sep, rest = item.partition(":")
+    if not sep:
+        raise ValueError(f"YAML: expected 'key: value', got {item!r}")
+    return _scalar(key), _scalar(rest)
+
+
+def parse_yaml(text: str):
+    """Parse the YAML subset of the profiles in configs/."""
+    lines = []
+    for raw in text.splitlines():
+        body = _strip_comment(raw).rstrip()
+        if body.strip():
+            lines.append((len(body) - len(body.lstrip(" ")), body.strip()))
+
+    def block(i: int, indent: int):
+        if lines[i][1].startswith("-"):
+            out = []
+            while i < len(lines) and lines[i][0] == indent and lines[i][1].startswith("-"):
+                rest = lines[i][1][1:]
+                item = rest.strip()
+                if _MAP_ITEM.match(item):
+                    # "- key: value" opens a mapping indented like its key.
+                    lines[i] = (indent + 1 + len(rest) - len(rest.lstrip(" ")), item)
+                    value, i = block(i, lines[i][0])
+                    out.append(value)
+                    continue
+                i += 1
+                if item:
+                    out.append(_scalar(item))
+                elif i < len(lines) and lines[i][0] > indent:
+                    value, i = block(i, lines[i][0])
+                    out.append(value)
+                else:
+                    out.append(None)
+            return out, i
+        out = {}
+        while i < len(lines) and lines[i][0] == indent:
+            text_i = lines[i][1]
+            key, sep, rest = text_i.partition(": ")
+            if not sep:
+                if not text_i.endswith(":"):
+                    raise ValueError(f"YAML: cannot parse line {text_i!r}")
+                key, rest = text_i[:-1], ""
+            i += 1
+            if rest.strip():
+                out[_scalar(key)] = _scalar(rest)
+            elif i < len(lines) and (lines[i][0] > indent or (
+                    lines[i][0] == indent and lines[i][1].startswith("-"))):
+                out[_scalar(key)], i = block(i, lines[i][0])
+            else:
+                out[_scalar(key)] = None
+        return out, i
+
+    if not lines:
+        return None
+    value, i = block(0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"YAML: unexpected indentation at {lines[i][1]!r}")
+    return value
+
+
+def _dump_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        mant, _, exp = repr(v).partition("e")
+        if "." not in mant:
+            mant += ".0"
+        if exp and exp[0] not in "+-":
+            exp = "+" + exp
+        return mant + ("e" + exp if exp else "")
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_dump_scalar(k)}: {_dump_scalar(x)}"
+                               for k, x in v.items()) + "}"
+    s = str(v)
+    if _scalar(s) != s or any(c in s for c in ":#[]{},\"'") or s != s.strip():
+        return json.dumps(s)
+    return s
+
+
+def dump_yaml(data: dict, indent: int = 0) -> str:
+    """Block-style YAML for nested dicts of scalars (parse_yaml's inverse)."""
+    out = []
+    for k, v in data.items():
+        if isinstance(v, dict) and v:
+            out.append(f"{' ' * indent}{k}:")
+            out.append(dump_yaml(v, indent + 2).rstrip("\n"))
+        else:
+            out.append(f"{' ' * indent}{k}: {_dump_scalar(v)}")
+    return "\n".join(out) + "\n"
+
+
 def _from_dict(cls, d: dict):
     import typing
 
@@ -133,7 +318,7 @@ def load_config(path: str | None = None, overrides: dict[str, Any] | None = None
     data: dict = {}
     if path:
         with open(path) as f:
-            data = yaml.safe_load(f) or {}
+            data = parse_yaml(f.read()) or {}
     cfg = _from_dict(DuLowConfig, data)
     for key, value in (overrides or {}).items():
         obj = cfg
@@ -175,7 +360,7 @@ def validate(cfg: DuLowConfig) -> None:
 
 def dump_config(cfg: DuLowConfig) -> str:
     """Round-trip the config to YAML (the reference's --dump_config)."""
-    return yaml.safe_dump(dataclasses.asdict(cfg), sort_keys=False)
+    return dump_yaml(dataclasses.asdict(cfg))
 
 
 def to_cell_config(cfg: DuLowConfig):

@@ -28,7 +28,7 @@ def get_lib():
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    so = os.path.join(_native_dir(), "libsrsran_tpu_native.so")
+    so = os.path.join(_native_dir(), "libsrsran_native.so")
     if not os.path.exists(so):
         try:
             subprocess.run(["make", "-C", _native_dir()], check=True, capture_output=True)

@@ -15,7 +15,7 @@ register extra commands as name -> callable(payload dict) like the
 reference's remote_command plugins.
 
 The WebSocket layer is a dependency-free RFC 6455 implementation
-(handshake + text/ping/close frames) — the TPU build's stand-in for the
+(handshake + text/ping/close frames) — this build's stand-in for the
 vendored uWebSockets.
 """
 
@@ -273,7 +273,7 @@ class WsClient:
 
     def __init__(self, host: str, port: int, timeout: float = 5.0):
         self.sock = socket.create_connection((host, port), timeout=timeout)
-        key = base64.b64encode(b"srsran-tpu-ws-cli!").decode()
+        key = base64.b64encode(b"srsran-ws-client").decode()
         req = (
             f"GET / HTTP/1.1\r\nHost: {host}:{port}\r\n"
             "Upgrade: websocket\r\nConnection: Upgrade\r\n"

@@ -1,4 +1,4 @@
-"""Golden-replay determinism harness (SURVEY §5.2 TPU equivalent).
+"""Golden-replay determinism harness (SURVEY §5.2 equivalent).
 
 The reference gets concurrency safety structurally (strands, SPSC queues,
 TSAN builds); here device compute is functional so races can only creep in

@@ -1,10 +1,10 @@
 """Full-stack e2e: GTP-U -> CU-UP(SDAP/PDCP) -> F1-U -> DU(RLC/MAC/sched)
--> TPU PHY (PDSCH encode -> fading channel -> PUSCH decode) -> MAC/RLC ->
+-> PHY (PDSCH encode -> fading channel -> PUSCH decode) -> MAC/RLC ->
 PDCP -> SDAP -> IP, both directions.
 
 The framework analogue of the reference's e2e ping test (SURVEY.md
 section 4 tier 4: gnb + UE over ZMQ RF): every byte crosses the real
-LDPC/modulation/OFDM-grid signal path on the (virtual CPU) TPU mesh via
+LDPC/modulation/OFDM-grid signal path on the (virtual CPU) device mesh via
 the scheduler's loopback grant pairing (PDSCH grid decoded by the PUSCH
 chain, as in test_scheduler_sim).
 """
@@ -27,7 +27,7 @@ def _slot(i):
     return SlotPoint.from_sfn_slot(SubcarrierSpacing.KHZ30, i // 20, i % 20)
 
 
-def test_ip_packets_over_tpu_phy():
+def test_ip_packets_over_phy():
     rng = np.random.default_rng(0)
     key = jax.random.PRNGKey(0)
     core_rx = []

@@ -1,5 +1,5 @@
 """CI smoke of the BLER parity surface: two reference-measured operating
-points replayed through the TPU chain at reduced slot counts; agreement
+points replayed through this chain at reduced slot counts; agreement
 within generous Monte-Carlo bounds.  The full 300-slot table lives in
 BLER_PARITY.md (benchmarks/bler_parity.py)."""
 

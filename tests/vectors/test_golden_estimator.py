@@ -150,7 +150,7 @@ def test_estimator_refjax_production_kernel_golden():
 
 
 def test_estimator_fast_path_bounded_by_goldens():
-    """The TPU-optimized fast estimator (ops/estimator.py, the default
+    """The batched fast estimator (ops/estimator.py, the default
     production path) is bounded against the SAME reference vectors: per-RE
     CE deviation under 20% of the channel scale on single-CDM cases
     (measured worst case 18.1% at the 10 dB point, where the residual is

@@ -2,7 +2,7 @@
 // raw little-endian, no header — reference include/srsran/support/file_vector.h:63-81)
 // plus a minimal JSON manifest builder. The generators drive the REFERENCE
 // implementation (compiled from /root/reference) to produce conformance
-// vectors; the TPU framework's pytest `vectortest` suite diffs against them.
+// vectors; this framework's pytest `vectortest` suite diffs against them.
 #pragma once
 
 #include <cstdint>

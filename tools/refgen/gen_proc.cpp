@@ -1015,7 +1015,7 @@ void gen_pusch_processor_suite() { gen_pusch_processor(); }
 // (int8 saturating accumulation in the rate dematcher,
 // pusch_decoder_impl.cpp:336 / ldpc_rate_dematcher combine path) recovers
 // the block.  Captures, per transmission, the exact int8 LLR inputs, the
-// decoder verdict, and the combined codeblock soft-bit buffers so the TPU
+// decoder verdict, and the combined codeblock soft-bit buffers so the JAX
 // side can assert bit-exact combine parity and verdict parity.
 
 namespace {
@@ -1234,7 +1234,7 @@ void gen_harq_retx_suite() { gen_harq_retx(); }
 // Runs the REFERENCE pusch chain (pdsch encode -> the reference's own
 // pxsch_bler_test TDL channel emulator -> pusch_processor decode) at fixed
 // operating points, recording BLER and LDPC iteration statistics — the
-// reference side of BLER_PARITY.md.  The TPU side replays the same
+// reference side of BLER_PARITY.md.  The JAX side replays the same
 // operating points with its own chain + emulator
 // (tests/test_bler_parity.py); both emulators draw uncorrelated
 // TDL-profile taps per slot, so the BLERs are statistically comparable.
@@ -1355,7 +1355,7 @@ void gen_bler_parity() {
       // runs the ZF equalizer like the reference's own bler harness
       // (pxsch_bler_test.cpp:257); ranks above 2 are enterprise-only in
       // the reference (channel_equalizer_generic_impl.cpp is_supported:
-      // ZF 1-2 layers, MMSE 1 layer) — the TPU-side replay measures
+      // ZF 1-2 layers, MMSE 1 layer) — the JAX-side replay measures
       // rank 4 with its own MMSE and annotates the gap.
       {"TDLA", 12.0f, 10, 52, 300, 2},
       {"TDLA", 15.0f, 10, 52, 300, 2},

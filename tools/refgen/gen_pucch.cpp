@@ -3,7 +3,7 @@
 // channel + noise, then run the REFERENCE pucch_processor
 // (lib/phy/upper/channel_processors/pucch/pucch_processor_impl.cpp) and
 // dump grid + configuration + reference outputs (UCI payload, detection
-// status/metric).  tests/vectors/test_golden_pucch.py asserts the TPU
+// status/metric).  tests/vectors/test_golden_pucch.py asserts the JAX
 // framework's PUCCH receivers produce the same messages on the same grids.
 
 #include "common.h"

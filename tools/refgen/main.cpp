@@ -5,7 +5,7 @@
 // little-endian .dat files (the reference's file_vector format,
 // include/srsran/support/file_vector.h:63-81) plus a JSON manifest per suite.
 //
-// The TPU framework's tests/vectors/ suite then asserts bit-exact (integer
+// This framework's tests/vectors/ suite then asserts bit-exact (integer
 // domains) or tolerance-bounded (float domains) parity against these.
 //
 // Usage: refgen <outdir-root> [suite ...]   (no suites = all)
